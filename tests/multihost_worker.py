@@ -3,8 +3,8 @@
 Each worker is one "host": it initializes jax.distributed against a local
 coordinator, gets 4 virtual CPU devices (XLA_FLAGS set by the launcher), and
 runs the REAL `fit()` end-to-end — globally sharded pool, GSPMD step over the
-8-device cross-process mesh, process-0-gated logging, collective Orbax
-checkpointing. The launcher (tests/test_multihost.py) supplies the full
+8-device cross-process mesh, process-0-gated logging, checkpoints gathered
+across processes and written by process 0. The launcher (tests/test_multihost.py) supplies the full
 Config as JSON so the same worker drives every family, then compares the
 final checkpoint against a single-process run of the same config.
 
@@ -26,17 +26,17 @@ def main() -> None:
 
     import jax
 
-    from nerf_tpu.parallel.multihost import init_distributed, is_primary
+    from nerf_jax.parallel.multihost import init_distributed, is_primary
 
     init_distributed(f"localhost:{port}", nprocs, pid)
     assert jax.process_count() == nprocs, jax.process_count()
     assert jax.device_count() == 4 * nprocs, jax.device_count()
     assert len(jax.local_devices()) == 4
 
-    from nerf_tpu.config import config_from_dict
-    from nerf_tpu.data.pipeline import load_scene
-    from nerf_tpu.parallel.mesh import create_mesh, data_sharding
-    from nerf_tpu.train.loop import fit
+    from nerf_jax.config import config_from_dict
+    from nerf_jax.data.pipeline import load_scene
+    from nerf_jax.parallel.mesh import create_mesh, data_sharding
+    from nerf_jax.train.loop import fit
 
     with open(cfg_json) as f:
         cfg = config_from_dict(json.load(f))

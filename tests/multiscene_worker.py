@@ -20,13 +20,13 @@ def main() -> None:
 
     import jax
 
-    from nerf_tpu.parallel.multihost import init_distributed, is_primary
+    from nerf_jax.parallel.multihost import init_distributed, is_primary
 
     init_distributed(f"localhost:{port}", nprocs, pid)
     assert jax.process_count() == nprocs, jax.process_count()
 
-    from nerf_tpu.config import config_from_dict
-    from nerf_tpu.train.multiscene_loop import fit_multiscene
+    from nerf_jax.config import config_from_dict
+    from nerf_jax.train.multiscene_loop import fit_multiscene
 
     with open(cfg_json) as f:
         cfg = config_from_dict(json.load(f))

@@ -14,14 +14,19 @@ import os
 
 import numpy as np
 
-from nerf_tpu.data.poses import pose_spherical
-from nerf_tpu.data.rays import compute_rays_single
+from nerf_jax.data.poses import pose_spherical
+from nerf_jax.data.rays import compute_rays_single
+from nerf_jax.utils.png import write_png
 
 CAMERA_ANGLE_X = 0.6911112070083618  # standard Blender synthetic FOV
 
 
+SPHERE_RGB = (0.9, 0.3, 0.2)
+
+
 def render_sphere_image(
-    h: int, w: int, c2w: np.ndarray, radius: float = 1.0
+    h: int, w: int, c2w: np.ndarray, radius: float = 1.0,
+    color=SPHERE_RGB,
 ) -> np.ndarray:
     """Returns an RGBA float image in [0,1] of the test sphere."""
     focal = 0.5 * w / np.tan(0.5 * CAMERA_ANGLE_X)
@@ -37,7 +42,7 @@ def render_sphere_image(
 
     p = rays_o + t[:, None] * rays_d
     normal = p / np.maximum(np.linalg.norm(p, axis=-1, keepdims=True), 1e-9)
-    base = np.array([0.9, 0.3, 0.2], np.float32)
+    base = np.array(color, np.float32)
     shade = 0.5 + 0.5 * np.clip(normal @ np.array([0.3, 0.5, 0.8]), -1, 1)
     rgb = base[None, :] * shade[:, None]
 
@@ -57,8 +62,6 @@ def make_synthetic_llff_scene(
     """Write a forward-facing LLFF-format scene (poses_bounds.npy + images/)
     of the test sphere. Cameras sit near (0, 0, radius) looking down -z with
     small lateral offsets — the standard LLFF capture geometry."""
-    import imageio.v2 as imageio
-
     rng = np.random.default_rng(1)
     img_dir = os.path.join(root, "images")
     os.makedirs(img_dir, exist_ok=True)
@@ -78,7 +81,7 @@ def make_synthetic_llff_scene(
 
         img = render_sphere_image(h, w, c2w)
         rgb = img[..., :3] * img[..., 3:4]  # over black
-        imageio.imwrite(
+        write_png(
             os.path.join(img_dir, f"img_{i:03d}.png"),
             (rgb * 255).astype(np.uint8),
         )
@@ -102,11 +105,13 @@ def make_synthetic_blender_scene(
     num_train: int = 12,
     num_val: int = 2,
     num_test: int = 2,
+    seed: int = 0,
 ) -> str:
-    """Write a complete Blender-format scene under ``root``; returns root."""
-    import imageio.v2 as imageio
-
-    rng = np.random.default_rng(0)
+    """Write a complete Blender-format scene under ``root``; returns root.
+    ``seed`` jitters the camera orbit and rotates the sphere's colour, so
+    two seeds give two different scenes."""
+    rng = np.random.default_rng(seed)
+    color = np.roll(SPHERE_RGB, seed)
     os.makedirs(root, exist_ok=True)
     counts = {"train": num_train, "val": num_val, "test": num_test}
     for split, n in counts.items():
@@ -116,9 +121,9 @@ def make_synthetic_blender_scene(
         phis = -30.0 + rng.uniform(-10, 10, size=n)
         for i, (theta, phi) in enumerate(zip(thetas, phis)):
             c2w = pose_spherical(float(theta), float(phi), 4.0)
-            img = render_sphere_image(h, w, c2w)
+            img = render_sphere_image(h, w, c2w, color=color)
             rel = f"./{split}/r_{i}"
-            imageio.imwrite(
+            write_png(
                 os.path.join(root, f"{rel.lstrip('./')}.png"),
                 (img * 255).astype(np.uint8),
             )

@@ -16,22 +16,19 @@ import bench  # noqa: E402
 
 def test_suite_enabled_logic(monkeypatch):
     for k in list(os.environ):
-        if k.startswith("NERF_TPU_BENCH_"):
+        if k.startswith("NERF_JAX_BENCH_"):
             monkeypatch.delenv(k)
     assert bench._suite_enabled()
-    monkeypatch.setenv("NERF_TPU_BENCH_MODEL", "siren")
+    monkeypatch.setenv("NERF_JAX_BENCH_MODEL", "siren")
     assert not bench._suite_enabled()           # explicit knob -> single
-    monkeypatch.setenv("NERF_TPU_BENCH_SUITE", "1")
+    monkeypatch.setenv("NERF_JAX_BENCH_SUITE", "1")
     assert bench._suite_enabled()               # forced on
-    monkeypatch.setenv("NERF_TPU_BENCH_SUITE", "0")
+    monkeypatch.setenv("NERF_JAX_BENCH_SUITE", "0")
     assert not bench._suite_enabled()           # forced off
-    monkeypatch.delenv("NERF_TPU_BENCH_MODEL")
-    monkeypatch.delenv("NERF_TPU_BENCH_SUITE")
-    monkeypatch.setenv("NERF_TPU_BENCH_SKIP_PROBE", "1")
-    assert bench._suite_enabled()               # probe knobs don't count
-    # suite-only configuration must not opt OUT of the suite (a budget
-    # override once silently reduced a full suite run to headline-only)
-    monkeypatch.setenv("NERF_TPU_BENCH_SUITE_BUDGET", "2400")
+    monkeypatch.delenv("NERF_JAX_BENCH_MODEL")
+    monkeypatch.delenv("NERF_JAX_BENCH_SUITE")
+    # suite-only configuration must not opt OUT of the suite
+    monkeypatch.setenv("NERF_JAX_BENCH_SUITE_ROWS", "render_nerf")
     assert bench._suite_enabled()
 
 
@@ -40,15 +37,15 @@ def test_suite_emits_config_rows(monkeypatch, capsys):
     """_run_suite executes each row in a subprocess and prints one JSON
     object per row with a 'config' field; failures/timeouts become error
     rows instead of stalling."""
-    monkeypatch.setenv("NERF_TPU_PLATFORM", "cpu")
+    monkeypatch.setenv("JAX_PLATFORMS", "cpu")
     monkeypatch.setattr(bench, "_SUITE", [
         ("tiny_render",
-         {"NERF_TPU_BENCH_MODE": "render", "NERF_TPU_BENCH_HW": "32",
-          "NERF_TPU_BENCH_SAMPLES": "4", "NERF_TPU_BENCH_FINE": "0",
-          "NERF_TPU_BENCH_ITERS": "1", "NERF_TPU_BENCH_CHUNK": "1024"},
+         {"NERF_JAX_BENCH_MODE": "render", "NERF_JAX_BENCH_HW": "32",
+          "NERF_JAX_BENCH_SAMPLES": "4", "NERF_JAX_BENCH_FINE": "0",
+          "NERF_JAX_BENCH_ITERS": "1", "NERF_JAX_BENCH_CHUNK": "1024"},
          560),
         ("broken",
-         {"NERF_TPU_BENCH_MODE": "render", "NERF_TPU_BENCH_HW": "not_an_int"},
+         {"NERF_JAX_BENCH_MODE": "render", "NERF_JAX_BENCH_HW": "not_an_int"},
          120),
     ])
     headline = {"metric": "rays_per_sec_per_chip", "value": 1.0,

@@ -37,15 +37,16 @@ def test_headline_survives_midsuite_kill(tmp_path):
     env = dict(os.environ)
     env.update({
         "JAX_PLATFORMS": "cpu",
-        "NERF_TPU_PLATFORM": "cpu",
-        "NERF_TPU_BENCH_SUITE": "1",     # force the suite despite knobs
+        "NERF_JAX_BENCH_SUITE": "1",     # force the suite despite knobs
         # one cheap suite row (it inherits the tiny knobs below)
-        "NERF_TPU_BENCH_SUITE_ROWS": "train_nerf_dp8cpu",
+        "NERF_JAX_BENCH_SUITE_ROWS": "render_nerf",
+        "NERF_JAX_BENCH_HW": "16",
+        "NERF_JAX_BENCH_FINE": "0",
         # tiny protocol so the CPU headline lands in seconds
-        "NERF_TPU_BENCH_RAYS": "64",
-        "NERF_TPU_BENCH_SAMPLES": "8",
-        "NERF_TPU_BENCH_ITERS": "1",
-        "NERF_TPU_BENCH_SCAN": "2",
+        "NERF_JAX_BENCH_RAYS": "64",
+        "NERF_JAX_BENCH_SAMPLES": "8",
+        "NERF_JAX_BENCH_ITERS": "1",
+        "NERF_JAX_BENCH_SCAN": "2",
     })
     proc = subprocess.Popen(
         [sys.executable, BENCH], env=env, cwd=REPO,

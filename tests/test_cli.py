@@ -7,8 +7,8 @@ import os
 import numpy as np
 import pytest
 
-from nerf_tpu.cli.eval_cli import main as eval_main
-from nerf_tpu.cli.train_cli import main as train_main
+from nerf_jax.cli.eval_cli import main as eval_main
+from nerf_jax.cli.train_cli import main as train_main
 from tests.synthetic import make_synthetic_blender_scene
 
 
@@ -33,7 +33,6 @@ save_interval = 5
 log_interval = 5
 val_interval = 10
 model_type = nerf
-use_pallas = false
 num_render_poses = 2
 chunk_size = 128
 log_dir = {logs}
@@ -71,9 +70,9 @@ def test_eval_cli_renders_frames(trained, tmp_path):
     )
     frames = sorted(os.listdir(out_dir))
     assert frames == ["frame_0000.png", "frame_0001.png"]
-    import imageio.v2 as imageio
+    from nerf_jax.utils.png import read_png
 
-    img = imageio.imread(out_dir / "frame_0000.png")
+    img = read_png(str(out_dir / "frame_0000.png"))
     assert img.shape == (16, 16, 3)
     assert img.dtype == np.uint8
 
@@ -98,7 +97,7 @@ def test_eval_cli_metrics_mode(trained, tmp_path, capsys):
 
 
 def test_ssim_metric_properties():
-    from nerf_tpu.utils.metrics import ssim
+    from nerf_jax.utils.metrics import ssim
 
     rng = np.random.RandomState(0)
     img = rng.uniform(size=(32, 32, 3)).astype(np.float32)
@@ -131,7 +130,6 @@ save_interval = 100
 log_interval = 5
 val_interval = 100
 model_type = fastnerf
-use_pallas = false
 num_render_poses = 1
 chunk_size = 128
 log_dir = {logs}
@@ -153,7 +151,7 @@ def test_eval_cli_bake_renders_mlp_free(trained_fastnerf, tmp_path):
     )
     frames = sorted(os.listdir(out_dir))
     assert frames == ["frame_0000.png"]
-    import imageio.v2 as imageio
+    from nerf_jax.utils.png import read_png
 
-    img = imageio.imread(out_dir / "frame_0000.png")
+    img = read_png(str(out_dir / "frame_0000.png"))
     assert img.shape == (16, 16, 3)

@@ -3,7 +3,7 @@
 
 import numpy as np
 
-from nerf_tpu.config import Config, config_from_dict, parse_config_file, parse_kv_file
+from nerf_jax.config import Config, config_from_dict, parse_config_file, parse_kv_file
 
 
 def test_parse_kv_format(tmp_path):

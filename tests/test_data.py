@@ -10,11 +10,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from nerf_tpu.data.blender import load_blender
-from nerf_tpu.data.pipeline import RayPool, build_ray_pool, load_scene
-from nerf_tpu.data.rays import compute_rays
-from nerf_tpu.ops.ndc import ndc_rays
-from nerf_tpu.config import Config
+from nerf_jax.data.blender import load_blender
+from nerf_jax.data.pipeline import RayPool, build_ray_pool, load_scene
+from nerf_jax.data.rays import compute_rays
+from nerf_jax.ops.ndc import ndc_rays
+from nerf_jax.config import Config
 from tests.synthetic import make_synthetic_blender_scene
 
 

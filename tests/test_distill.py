@@ -5,13 +5,13 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from nerf_tpu.config import Config
-from nerf_tpu.models.kilonerf import KiloNeRFModel
-from nerf_tpu.models.nerf import NeRFModel
-from nerf_tpu.models.registry import grid_domain
-from nerf_tpu.train.distill import make_distill_step
-from nerf_tpu.train.optim import make_optimizer
-from nerf_tpu.train.state import TrainState
+from nerf_jax.config import Config
+from nerf_jax.models.kilonerf import KiloNeRFModel
+from nerf_jax.models.nerf import NeRFModel
+from nerf_jax.models.registry import grid_domain
+from nerf_jax.train.distill import make_distill_step
+from nerf_jax.train.optim import make_optimizer
+from nerf_jax.train.state import TrainState
 from tests.synthetic import make_synthetic_blender_scene
 
 
@@ -53,14 +53,14 @@ def test_distill_step_reduces_field_error():
 
 
 def test_fit_distills_then_finetunes(tmp_path):
-    from nerf_tpu.train.loop import fit
+    from nerf_jax.train.loop import fit
 
     root = tmp_path / "scene"
     make_synthetic_blender_scene(str(root), h=16, w=16, num_train=4)
     common = dict(
         dataset_path=str(root), num_random_rays=64, num_samples=4,
         hidden_dim=32, pos_encoding_dim=2, dir_encoding_dim=1,
-        use_pallas=False, donate_state=False, log_interval=5,
+        donate_state=False, log_interval=5,
         val_interval=100, save_interval=100,
         save_path=str(tmp_path / "models"), log_dir=str(tmp_path / "logs"),
     )

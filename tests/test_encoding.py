@@ -5,7 +5,7 @@ interleaved per frequency, no pi factor, identity included)."""
 import numpy as np
 import jax.numpy as jnp
 
-from nerf_tpu.models.encoding import encoded_dim, positional_encoding
+from nerf_jax.models.encoding import encoded_dim, positional_encoding
 
 
 def reference_encoding_numpy(x: np.ndarray, L: int) -> np.ndarray:

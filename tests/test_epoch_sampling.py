@@ -1,13 +1,13 @@
 """Strict-parity epoch sampling: one epoch must touch every ray exactly once
 (DataLoader shuffle-without-replacement semantics,
 /root/reference/train.py:119-121,155-160), implemented as a stateless
-Feistel-cipher permutation (nerf_tpu/data/pipeline.py::epoch_indices)."""
+Feistel-cipher permutation (nerf_jax/data/pipeline.py::epoch_indices)."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 
-from nerf_tpu.data.pipeline import RayPool, _feistel_permute, epoch_indices
+from nerf_jax.data.pipeline import RayPool, _feistel_permute, epoch_indices
 
 
 def test_feistel_is_exact_permutation():
@@ -80,11 +80,11 @@ def test_pool_sample_epoch_jits_and_scans():
 
 def test_train_step_epoch_sampling_end_to_end(tmp_path):
     """fit-level smoke: the epoch_sampling config trains and changes params."""
-    from nerf_tpu.config import Config
-    from nerf_tpu.data.pipeline import load_scene
-    from nerf_tpu.train.loop import render_settings_from_config
-    from nerf_tpu.train.state import create_train_state
-    from nerf_tpu.train.step import make_train_step
+    from nerf_jax.config import Config
+    from nerf_jax.data.pipeline import load_scene
+    from nerf_jax.train.loop import render_settings_from_config
+    from nerf_jax.train.state import create_train_state
+    from nerf_jax.train.step import make_train_step
     from tests.synthetic import make_synthetic_blender_scene
 
     root = tmp_path / "scene"
@@ -92,14 +92,14 @@ def test_train_step_epoch_sampling_end_to_end(tmp_path):
     cfg = Config(
         dataset_path=str(root), num_random_rays=32, num_samples=4,
         hidden_dim=32, pos_encoding_dim=2, dir_encoding_dim=1,
-        use_pallas=False, donate_state=False, epoch_sampling=True,
+        donate_state=False, epoch_sampling=True,
     )
     scene = load_scene(cfg)
     settings = render_settings_from_config(cfg)
     model, tx, state = create_train_state(cfg, jax.random.key(0))
     step_fn = make_train_step(
         model, tx, settings, cfg.num_random_rays, jax.random.key(1),
-        use_pallas=False, donate=False, epoch_sampling=True,
+        donate=False, epoch_sampling=True,
     )
     losses = []
     for _ in range(20):

@@ -5,7 +5,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from nerf_tpu.models import FastNeRFModel, create_model
+from nerf_jax.models import FastNeRFModel, create_model
 from tests.test_encoding import reference_encoding_numpy
 
 
@@ -116,7 +116,7 @@ def test_baked_matches_live_at_grid_nodes():
 def test_baked_renders_through_renderer():
     """BakedFastNeRF.apply satisfies the field contract — render_rays can
     drive it with params=None."""
-    from nerf_tpu.render.renderer import RenderSettings, render_rays
+    from nerf_jax.render.renderer import RenderSettings, render_rays
 
     m = FastNeRFModel(hidden_dim=32, num_factors=2, pos_encoding_dim=2,
                       dir_encoding_dim=1, dir_hidden_dim=16)
@@ -132,13 +132,13 @@ def test_baked_renders_through_renderer():
 
 
 def test_registry_and_train_step():
-    from nerf_tpu.config import Config
-    from nerf_tpu.data.pipeline import RayPool
-    from nerf_tpu.models.registry import model_from_config
-    from nerf_tpu.render.renderer import RenderSettings
-    from nerf_tpu.train.optim import make_optimizer
-    from nerf_tpu.train.state import TrainState
-    from nerf_tpu.train.step import make_train_step
+    from nerf_jax.config import Config
+    from nerf_jax.data.pipeline import RayPool
+    from nerf_jax.models.registry import model_from_config
+    from nerf_jax.render.renderer import RenderSettings
+    from nerf_jax.train.optim import make_optimizer
+    from nerf_jax.train.state import TrainState
+    from nerf_jax.train.step import make_train_step
 
     assert create_model("FastNeRF").name == "fastnerf"
     cfg = Config(model_type="fastnerf", hidden_dim=64, pos_encoding_dim=4,
@@ -156,7 +156,7 @@ def test_registry_and_train_step():
                    rgb=jax.random.uniform(k, (512, 3)), viewdirs=rd)
     settings = RenderSettings(near=2.0, far=6.0, num_samples=8)
     step = make_train_step(model, tx, settings, 64, jax.random.key(2),
-                           use_pallas=False, donate=False)
+                           donate=False)
     losses = []
     for _ in range(30):
         state, m = step(state, pool)

@@ -13,15 +13,15 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from nerf_tpu.config import Config
-from nerf_tpu.models.common import remap_domain
-from nerf_tpu.models.fastnerf import FastNeRFModel
-from nerf_tpu.models.kilonerf import KiloNeRFModel
-from nerf_tpu.models.ngp import NGPModel
-from nerf_tpu.models.plenoctree import PlenOctreeModel
-from nerf_tpu.models.plenoxels import PlenoxelsModel
-from nerf_tpu.models.registry import grid_domain, model_from_config
-from nerf_tpu.ops.sampling import normalize_positions
+from nerf_jax.config import Config
+from nerf_jax.models.common import remap_domain
+from nerf_jax.models.fastnerf import FastNeRFModel
+from nerf_jax.models.kilonerf import KiloNeRFModel
+from nerf_jax.models.ngp import NGPModel
+from nerf_jax.models.plenoctree import PlenOctreeModel
+from nerf_jax.models.plenoxels import PlenoxelsModel
+from nerf_jax.models.registry import grid_domain, model_from_config
+from nerf_jax.ops.sampling import normalize_positions
 
 
 def _pts(n=64, lo=-2.75, hi=-1.25, seed=0):
@@ -83,7 +83,7 @@ def test_model_from_config_injects_domain():
 
 def test_plenoxels_domain_equivalence():
     dom = (-2.75, -1.25)
-    kw = dict(grid_res=8, use_grid_kernel=False)
+    kw = dict(grid_res=8)
     m_dom = PlenoxelsModel(domain=dom, **kw)
     m_ref = PlenoxelsModel(**kw)
     params = m_dom.init(jax.random.key(0))
@@ -128,8 +128,7 @@ def test_ngp_domain_equivalence():
 
 def test_fastnerf_bake_covers_domain():
     dom = (-2.75, -1.25)
-    model = FastNeRFModel(hidden_dim=16, num_factors=2, domain=dom,
-                          use_grid_kernel=False)
+    model = FastNeRFModel(hidden_dim=16, num_factors=2, domain=dom,)
     params = model.init(jax.random.key(0))
     baked = model.bake(params, grid_res=9, dir_res=8)
     assert baked.domain == dom
@@ -166,8 +165,8 @@ def test_fit_uses_scene_bounds_for_llff_domain(tmp_path):
     grid in the frame the renderer actually normalizes with (found in
     review: the domain used the config's blender defaults 2/6 while the
     renderer used the reconstruction's world bounds)."""
-    from nerf_tpu.data.pipeline import load_scene
-    from nerf_tpu.train.loop import fit
+    from nerf_jax.data.pipeline import load_scene
+    from nerf_jax.train.loop import fit
     from tests.synthetic import make_synthetic_llff_scene
 
     root = tmp_path / "llff"
@@ -175,7 +174,7 @@ def test_fit_uses_scene_bounds_for_llff_domain(tmp_path):
     cfg = Config(
         dataset_path=str(root), dataset_type="llff", llff_factor=1,
         ndc=False, model_type="plenoxels", grid_res=8, learning_rate=0.01,
-        num_random_rays=64, num_samples=8, use_pallas=False,
+        num_random_rays=64, num_samples=8,
         donate_state=False, log_interval=5, val_interval=100,
         save_interval=100, save_path=str(tmp_path / "m"),
         log_dir=str(tmp_path / "l"),

@@ -9,8 +9,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from nerf_tpu.models import KiloNeRFModel, create_model
-from nerf_tpu.models.common import param_count
+from nerf_jax.models import KiloNeRFModel, create_model
+from nerf_jax.models.common import param_count
 from tests.test_encoding import reference_encoding_numpy
 
 
@@ -133,29 +133,14 @@ def test_grouped_dispatch_skewed_distributions():
     np.testing.assert_allclose(np.asarray(got[0]), np.asarray(ref[0]), atol=1e-6)
 
 
-def test_apply_handles_ray_sample_shape():
-    model = KiloNeRFModel(grid_res=2, hidden_dim=8, pos_encoding_dim=2,
-                          dir_encoding_dim=1, dispatch_tile=16)
-    params = model.init(jax.random.key(3))
-    pts = jax.random.uniform(jax.random.key(4), (6, 7, 3), minval=-1, maxval=1)
-    dirs = jax.random.normal(jax.random.key(5), (6, 7, 3))
-    dirs = dirs / jnp.linalg.norm(dirs, axis=-1, keepdims=True)
-    rgb, sigma = model.apply(params, pts, dirs)
-    assert rgb.shape == (6, 7, 3) and sigma.shape == (6, 7)
-    flat = model.apply(params, pts.reshape(-1, 3), dirs.reshape(-1, 3))
-    np.testing.assert_allclose(
-        np.asarray(rgb).reshape(-1, 3), np.asarray(flat[0]), atol=1e-6
-    )
-
-
 def test_registry_and_train_step():
-    from nerf_tpu.config import Config
-    from nerf_tpu.data.pipeline import RayPool
-    from nerf_tpu.models.registry import model_from_config
-    from nerf_tpu.render.renderer import RenderSettings
-    from nerf_tpu.train.optim import make_optimizer
-    from nerf_tpu.train.state import TrainState
-    from nerf_tpu.train.step import make_train_step
+    from nerf_jax.config import Config
+    from nerf_jax.data.pipeline import RayPool
+    from nerf_jax.models.registry import model_from_config
+    from nerf_jax.render.renderer import RenderSettings
+    from nerf_jax.train.optim import make_optimizer
+    from nerf_jax.train.state import TrainState
+    from nerf_jax.train.step import make_train_step
 
     assert create_model("KiloNeRF").name == "kilonerf"
     cfg = Config(model_type="kilonerf", hidden_dim=16, grid_res=4,
@@ -173,7 +158,7 @@ def test_registry_and_train_step():
                    rgb=jax.random.uniform(k, (512, 3)), viewdirs=rd)
     settings = RenderSettings(near=2.0, far=6.0, num_samples=8)
     step = make_train_step(model, tx, settings, 64, jax.random.key(2),
-                           use_pallas=False, donate=False)
+                           donate=False)
     losses = []
     for _ in range(30):
         state, m = step(state, pool)

@@ -5,12 +5,12 @@ import numpy as np
 import jax
 import pytest
 
-from nerf_tpu.config import Config
-from nerf_tpu.data.llff import load_llff
-from nerf_tpu.data.pipeline import load_scene
-from nerf_tpu.train.loop import render_settings_from_config
-from nerf_tpu.train.state import create_train_state
-from nerf_tpu.train.step import make_train_step
+from nerf_jax.config import Config
+from nerf_jax.data.llff import load_llff
+from nerf_jax.data.pipeline import load_scene
+from nerf_jax.train.loop import render_settings_from_config
+from nerf_jax.train.state import create_train_state
+from nerf_jax.train.step import make_train_step
 from tests.synthetic import make_synthetic_llff_scene
 
 
@@ -62,7 +62,7 @@ def test_ndc_training_loss_decreases(llff_dir):
     cfg = Config(
         dataset_path=llff_dir, dataset_type="llff", llff_factor=1, ndc=True,
         num_random_rays=128, num_samples=8, hidden_dim=32, pos_encoding_dim=4,
-        dir_encoding_dim=2, learning_rate=5e-3, use_pallas=False,
+        dir_encoding_dim=2, learning_rate=5e-3,
         donate_state=False,
     )
     scene = load_scene(cfg)
@@ -74,7 +74,7 @@ def test_ndc_training_loss_decreases(llff_dir):
     )
     model, tx, state = create_train_state(cfg, jax.random.key(0))
     step_fn = make_train_step(model, tx, settings, 128, jax.random.key(1),
-                              use_pallas=False, donate=False)
+                              donate=False)
     losses = []
     for _ in range(60):
         state, m = step_fn(state, scene.pool)

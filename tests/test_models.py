@@ -5,8 +5,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from nerf_tpu.models import NeRFModel, SirenModel, create_model
-from nerf_tpu.models.common import param_count
+from nerf_jax.models import NeRFModel, SirenModel, create_model
+from nerf_jax.models.common import param_count
 from tests.test_encoding import reference_encoding_numpy
 
 
@@ -136,8 +136,8 @@ def test_siren_forward_matches_numpy():
 def test_reference_init_keeps_raw_torch_draw():
     """reference_init=True skips the deterministic density-bias guard so the
     fresh-init distribution matches torch's Linear law exactly."""
-    from nerf_tpu.config import Config
-    from nerf_tpu.models.registry import model_from_config
+    from nerf_jax.config import Config
+    from nerf_jax.models.registry import model_from_config
 
     guarded = NeRFModel().init(jax.random.key(0))
     assert float(guarded["block2"][-1]["b"][-1]) == 0.5
@@ -168,32 +168,17 @@ def test_registry():
 
 
 class TestGaborModel:
-    """MFN-Gabor field (reference roadmap, notes.txt:3)."""
-
-    def _model(self):
-        from nerf_tpu.models import GaborModel
-
-        return GaborModel(hidden_dim=64, num_layers=4)
-
-    def test_shapes(self):
-        model = self._model()
-        params = model.init(jax.random.key(0))
-        pts = jax.random.uniform(jax.random.key(1), (10, 3), minval=-1, maxval=1)
-        dirs = jax.random.normal(jax.random.key(2), (10, 3))
-        dirs = dirs / jnp.linalg.norm(dirs, axis=-1, keepdims=True)
-        rgb, sigma = model.apply(params, pts, dirs)
-        assert rgb.shape == (10, 3) and sigma.shape == (10,)
-        assert bool(jnp.all((rgb >= 0) & (rgb <= 1)))
-        assert bool(jnp.all(sigma >= 0))
+    """MFN-Gabor field (reference roadmap, notes.txt:3); its field contract
+    is a case of tests/test_families.py."""
 
     def test_registry_and_train_step(self):
-        from nerf_tpu.config import Config
-        from nerf_tpu.models.registry import model_from_config
-        from nerf_tpu.render.renderer import RenderSettings
-        from nerf_tpu.train.optim import make_optimizer
-        from nerf_tpu.train.state import TrainState
-        from nerf_tpu.train.step import make_train_step
-        from nerf_tpu.data.pipeline import RayPool
+        from nerf_jax.config import Config
+        from nerf_jax.models.registry import model_from_config
+        from nerf_jax.render.renderer import RenderSettings
+        from nerf_jax.train.optim import make_optimizer
+        from nerf_jax.train.state import TrainState
+        from nerf_jax.train.step import make_train_step
+        from nerf_jax.data.pipeline import RayPool
 
         cfg = Config(model_type="gabor", hidden_dim=64)
         model = model_from_config(cfg)
@@ -209,7 +194,7 @@ class TestGaborModel:
                        rgb=jax.random.uniform(k, (512, 3)), viewdirs=rd)
         settings = RenderSettings(near=2.0, far=6.0, num_samples=8)
         step = make_train_step(model, tx, settings, 64, jax.random.key(2),
-                               use_pallas=False, donate=False)
+                               donate=False)
         losses = []
         for _ in range(30):
             state, m = step(state, pool)

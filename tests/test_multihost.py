@@ -14,7 +14,7 @@ import numpy as np
 import jax
 import pytest
 
-from nerf_tpu.config import Config
+from nerf_jax.config import Config
 from tests.synthetic import make_synthetic_blender_scene
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -42,7 +42,6 @@ def _run_two_process_vs_single(tmp_path, cfg_kwargs):
         dataset_path=str(scene_dir),
         num_random_rays=64,
         num_samples=4,
-        use_pallas=False,
         donate_state=False,
         log_interval=4,
         val_interval=4,   # exercises the multihost validation/allgather path
@@ -85,7 +84,7 @@ def _run_two_process_vs_single(tmp_path, cfg_kwargs):
 
     # --- single-process run, same config (8 local virtual devices) ---
     sp_dir = tmp_path / "sp"
-    from nerf_tpu.train.loop import fit
+    from nerf_jax.train.loop import fit
 
     cfg_sp = dataclasses.replace(cfg, multihost=False,
                                  save_path=str(sp_dir),
@@ -94,8 +93,8 @@ def _run_two_process_vs_single(tmp_path, cfg_kwargs):
 
     # --- the two final checkpoints must agree (same data, same keys, same
     # global batch; only the process layout differs) ---
-    from nerf_tpu.train.state import create_train_state
-    from nerf_tpu.utils.checkpoint import latest_checkpoint, load_checkpoint
+    from nerf_jax.train.state import create_train_state
+    from nerf_jax.utils.checkpoint import latest_checkpoint, load_checkpoint
 
     _, _, template = create_train_state(cfg_sp, jax.random.key(cfg.seed))
     mh_ckpt = latest_checkpoint(str(mh_dir))

@@ -14,8 +14,8 @@ import numpy as np
 import jax
 import pytest
 
-from nerf_tpu.config import Config
-from nerf_tpu.train.multiscene_loop import fit_multiscene
+from nerf_jax.config import Config
+from nerf_jax.train.multiscene_loop import fit_multiscene
 from tests.synthetic import make_synthetic_blender_scene
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -35,7 +35,7 @@ def _cfg(tmp_path, scene_a, **kw):
         dataset_path=scene_a,
         model_type="nerf", hidden_dim=32, pos_encoding_dim=2,
         dir_encoding_dim=1, num_samples=4, num_random_rays=32,
-        use_pallas=False, donate_state=False,
+        donate_state=False,
         mesh_shape="scene:2,data:4",
         log_interval=4, val_interval=1000, save_interval=1000,
         save_path=str(tmp_path / "models"),
@@ -102,7 +102,7 @@ def test_scheduled_lr_logged_and_validation(tmp_path, two_scenes, capsys):
     """The console log line carries the SCHEDULED lr(step), not the base
     learning rate (the round-2 driver logged cfg.learning_rate); per-scene
     validation renders run at val_interval."""
-    from nerf_tpu.train.optim import lr_schedule
+    from nerf_jax.train.optim import lr_schedule
 
     a, b = two_scenes
     # lr_decay=0.004 -> gamma = 0.1**(1/4): visibly decayed by step 8
@@ -133,7 +133,7 @@ def test_validation_renders_per_scene(tmp_path, two_scenes, monkeypatch):
     a, b = two_scenes
     logged = []
 
-    from nerf_tpu.utils.logging import MetricLogger
+    from nerf_jax.utils.logging import MetricLogger
 
     orig = MetricLogger.log_scalar
 
@@ -207,8 +207,8 @@ def test_two_process_multiscene_matches_single(tmp_path, two_scenes):
         [a, b], max_steps=8, enable_tensorboard=False,
     )
 
-    from nerf_tpu.train.state import TrainState
-    from nerf_tpu.utils.checkpoint import latest_checkpoint, load_checkpoint
+    from nerf_jax.train.state import TrainState
+    from nerf_jax.utils.checkpoint import latest_checkpoint, load_checkpoint
 
     mh_ckpt = latest_checkpoint(str(mh_dir))
     assert mh_ckpt is not None and mh_ckpt.endswith("000008")

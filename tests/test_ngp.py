@@ -5,8 +5,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from nerf_tpu.models import create_model
-from nerf_tpu.models.ngp import NGPModel, _PRIMES
+from nerf_jax.models import create_model
+from nerf_jax.models.ngp import NGPModel, _PRIMES
 
 
 def _unit(rng, n):
@@ -111,26 +111,14 @@ def test_gradient_reaches_only_touched_rows():
     assert 1 <= len(nz) <= 8  # the one sample's stencil, nothing else
 
 
-def test_forward_shapes_and_finite():
-    m = NGPModel(num_levels=4, base_res=4, max_res=64, log2_table=12)
-    params = m.init(jax.random.key(3))
-    rng = np.random.default_rng(3)
-    pts = jnp.asarray(rng.uniform(-1, 1, size=(6, 7, 3)), jnp.float32)
-    dirs = jnp.asarray(np.broadcast_to(_unit(rng, 6)[:, None, :], (6, 7, 3)))
-    rgb, sigma = m.apply(params, pts, dirs)
-    assert rgb.shape == (6, 7, 3) and sigma.shape == (6, 7)
-    assert np.isfinite(np.asarray(rgb)).all()
-    assert (np.asarray(sigma) > 0).all()  # exp activation
-
-
 def test_registry_and_train_step():
-    from nerf_tpu.config import Config
-    from nerf_tpu.data.pipeline import RayPool
-    from nerf_tpu.models.registry import model_from_config
-    from nerf_tpu.render.renderer import RenderSettings
-    from nerf_tpu.train.optim import make_optimizer
-    from nerf_tpu.train.state import TrainState
-    from nerf_tpu.train.step import make_train_step
+    from nerf_jax.config import Config
+    from nerf_jax.data.pipeline import RayPool
+    from nerf_jax.models.registry import model_from_config
+    from nerf_jax.render.renderer import RenderSettings
+    from nerf_jax.train.optim import make_optimizer
+    from nerf_jax.train.state import TrainState
+    from nerf_jax.train.step import make_train_step
 
     assert create_model("NGP").name == "ngp"
     cfg = Config(model_type="ngp")
@@ -148,7 +136,7 @@ def test_registry_and_train_step():
                    rgb=jax.random.uniform(k, (512, 3)), viewdirs=rd)
     settings = RenderSettings(near=2.0, far=6.0, num_samples=8)
     step = make_train_step(model, tx, settings, 64, jax.random.key(2),
-                           use_pallas=False, donate=False)
+                           donate=False)
     losses = []
     for _ in range(40):
         state, mtr = step(state, pool)

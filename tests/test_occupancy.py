@@ -1,4 +1,4 @@
-"""Occupancy-guided sampling (ops/occupancy.py): the TPU-shaped
+"""Occupancy-guided sampling (ops/occupancy.py): the static-shape
 empty-space skip — static sample count, samples moved into occupied
 space through the inverse CDF."""
 
@@ -6,7 +6,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from nerf_tpu.ops.occupancy import (
+from nerf_jax.ops.occupancy import (
     OccupancyGrid,
     bake_occupancy,
     occupancy_t,
@@ -93,13 +93,13 @@ def test_floor_keeps_empty_rays_spread():
 def test_train_step_with_occupancy_grid():
     """The step accepts a traced occ_grid and samples differently under
     it (same PRNG stream, different coarse t placement)."""
-    from nerf_tpu.config import Config
-    from nerf_tpu.data.pipeline import RayPool
-    from nerf_tpu.models.nerf import NeRFModel
-    from nerf_tpu.render.renderer import RenderSettings
-    from nerf_tpu.train.optim import make_optimizer
-    from nerf_tpu.train.state import TrainState
-    from nerf_tpu.train.step import make_train_step
+    from nerf_jax.config import Config
+    from nerf_jax.data.pipeline import RayPool
+    from nerf_jax.models.nerf import NeRFModel
+    from nerf_jax.render.renderer import RenderSettings
+    from nerf_jax.train.optim import make_optimizer
+    from nerf_jax.train.state import TrainState
+    from nerf_jax.train.step import make_train_step
 
     model = NeRFModel(hidden_dim=32, pos_encoding_dim=2, dir_encoding_dim=1)
     params = model.init(jax.random.key(0))
@@ -115,7 +115,7 @@ def test_train_step_with_occupancy_grid():
                    rgb=jax.random.uniform(k, (128, 3)), viewdirs=d)
     dom = (-2.75, -1.25)
     step = make_train_step(model, tx, settings, 64, jax.random.key(2),
-                           use_pallas=False, donate=False,
+                           donate=False,
                            occupancy_opts=(dom, 32, 1e-2))
     occ = jnp.ones((8, 8, 8, 1), jnp.float32)
     _, m_occ = step(state, pool, occ)
@@ -136,8 +136,8 @@ def test_train_step_with_occupancy_grid():
 
 def test_fit_occupancy_guided_training(tmp_path):
     """fit() bakes, rebakes at the interval, and converges."""
-    from nerf_tpu.config import Config
-    from nerf_tpu.train.loop import fit
+    from nerf_jax.config import Config
+    from nerf_jax.train.loop import fit
     from tests.synthetic import make_synthetic_blender_scene
 
     root = tmp_path / "scene"
@@ -145,7 +145,7 @@ def test_fit_occupancy_guided_training(tmp_path):
     cfg = Config(
         dataset_path=str(root), model_type="nerf", hidden_dim=32,
         pos_encoding_dim=2, dir_encoding_dim=1, num_samples=8,
-        num_random_rays=64, use_pallas=False, donate_state=False,
+        num_random_rays=64, donate_state=False,
         occupancy_res=8, occupancy_interval=4,
         log_interval=4, val_interval=100, save_interval=100,
         save_path=str(tmp_path / "m"), log_dir=str(tmp_path / "l"),
@@ -158,11 +158,11 @@ def test_render_quality_beats_uniform_at_small_sample_count():
     """The feature's point: with the sample budget cut 4x, occupancy-guided
     sampling stays close to the dense render while uniform stratification
     degrades more."""
-    from nerf_tpu.models.plenoxels import PlenoxelsModel
-    from nerf_tpu.render.renderer import RenderSettings, render_rays
+    from nerf_jax.models.plenoxels import PlenoxelsModel
+    from nerf_jax.render.renderer import RenderSettings, render_rays
 
     dom = (-2.75, -1.25)
-    model = PlenoxelsModel(grid_res=32, use_grid_kernel=False, domain=dom)
+    model = PlenoxelsModel(grid_res=32, domain=dom)
     params = model.init(jax.random.key(0))
     # a solid ball in the domain center, red-ish SH DC
     lin = np.linspace(dom[0], dom[1], 32, dtype=np.float32)

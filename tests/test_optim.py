@@ -4,7 +4,7 @@ lr(step) = lr0 * max(gamma**step, lr_min/lr0), gamma = factor**(1/(decay*1000)).
 import numpy as np
 import jax.numpy as jnp
 
-from nerf_tpu.train.optim import lr_schedule
+from nerf_jax.train.optim import lr_schedule
 
 
 def test_schedule_matches_reference_law():

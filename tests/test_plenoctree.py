@@ -6,8 +6,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from nerf_tpu.models import PlenOctreeModel, create_model
-from nerf_tpu.models.plenoctree import from_octree, to_octree
+from nerf_jax.models import PlenOctreeModel, create_model
+from nerf_jax.models.plenoctree import from_octree, to_octree
 from tests.test_encoding import reference_encoding_numpy
 from tests.test_plenoxels import sh_basis_numpy
 
@@ -111,13 +111,13 @@ def test_octree_roundtrip_and_pruning():
 
 
 def test_registry_and_train_step():
-    from nerf_tpu.config import Config
-    from nerf_tpu.data.pipeline import RayPool
-    from nerf_tpu.models.registry import model_from_config
-    from nerf_tpu.render.renderer import RenderSettings
-    from nerf_tpu.train.optim import make_optimizer
-    from nerf_tpu.train.state import TrainState
-    from nerf_tpu.train.step import make_train_step
+    from nerf_jax.config import Config
+    from nerf_jax.data.pipeline import RayPool
+    from nerf_jax.models.registry import model_from_config
+    from nerf_jax.render.renderer import RenderSettings
+    from nerf_jax.train.optim import make_optimizer
+    from nerf_jax.train.state import TrainState
+    from nerf_jax.train.step import make_train_step
 
     assert create_model("PlenOctree").name == "plenoctree"
     cfg = Config(model_type="plenoctree", hidden_dim=64, pos_encoding_dim=4)
@@ -134,7 +134,7 @@ def test_registry_and_train_step():
                    rgb=jax.random.uniform(k, (512, 3)), viewdirs=rd)
     settings = RenderSettings(near=2.0, far=6.0, num_samples=8)
     step = make_train_step(model, tx, settings, 64, jax.random.key(2),
-                           use_pallas=False, donate=False)
+                           donate=False)
     losses = []
     for _ in range(30):
         state, mtr = step(state, pool)

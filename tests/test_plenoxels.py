@@ -5,9 +5,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from nerf_tpu.models import PlenoxelsModel, create_model
-from nerf_tpu.models.plenoxels import sh_basis
-from nerf_tpu.ops.interp import trilinear
+from nerf_jax.models import PlenoxelsModel, create_model
+from nerf_jax.models.plenoxels import sh_basis
+from nerf_jax.ops.interp import trilinear
 
 
 def _unit(rng, n):
@@ -113,13 +113,13 @@ def test_upsample_preserves_field_at_nodes():
 
 
 def test_registry_and_train_step():
-    from nerf_tpu.config import Config
-    from nerf_tpu.data.pipeline import RayPool
-    from nerf_tpu.models.registry import model_from_config
-    from nerf_tpu.render.renderer import RenderSettings
-    from nerf_tpu.train.optim import make_optimizer
-    from nerf_tpu.train.state import TrainState
-    from nerf_tpu.train.step import make_train_step
+    from nerf_jax.config import Config
+    from nerf_jax.data.pipeline import RayPool
+    from nerf_jax.models.registry import model_from_config
+    from nerf_jax.render.renderer import RenderSettings
+    from nerf_jax.train.optim import make_optimizer
+    from nerf_jax.train.state import TrainState
+    from nerf_jax.train.step import make_train_step
 
     assert create_model("Plenoxels").name == "plenoxels"
     assert create_model("plenoxels").grid_res == 128  # model default kept
@@ -137,10 +137,25 @@ def test_registry_and_train_step():
                    rgb=jax.random.uniform(k, (512, 3)), viewdirs=rd)
     settings = RenderSettings(near=2.0, far=6.0, num_samples=8)
     step = make_train_step(model, tx, settings, 64, jax.random.key(2),
-                           use_pallas=False, donate=False)
+                           donate=False)
     losses = []
     for _ in range(40):
         state, mtr = step(state, pool)
         losses.append(float(mtr["mse"]))
     assert np.isfinite(losses).all()
     assert np.mean(losses[-5:]) < np.mean(losses[:5])
+
+
+def test_plenoxels_upsample_exact():
+    rng = np.random.default_rng(7)
+    model = PlenoxelsModel(grid_res=16, sh_degree=0)
+    grid = jnp.asarray(
+        rng.normal(size=(16, 16, 16, model.channels)).astype(np.float32)
+    )
+    up = model.upsample({"grid": grid}, 24)["grid"]
+    lin = jnp.linspace(-1.0, 1.0, 24, dtype=jnp.float32)
+    pts = jnp.stack(jnp.meshgrid(lin, lin, lin, indexing="ij"),
+                    axis=-1).reshape(-1, 3)
+    want = trilinear(grid, pts).reshape(24, 24, 24, model.channels)
+    np.testing.assert_allclose(np.asarray(up), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)

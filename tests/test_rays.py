@@ -4,8 +4,8 @@ spherical pose matrices per eval.py:14-41)."""
 
 import numpy as np
 
-from nerf_tpu.data.poses import pose_spherical, spherical_orbit
-from nerf_tpu.data.rays import compute_rays, compute_rays_single
+from nerf_jax.data.poses import pose_spherical, spherical_orbit
+from nerf_jax.data.rays import compute_rays, compute_rays_single
 
 
 def test_identity_pose_center_ray():

@@ -5,10 +5,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from nerf_tpu.models import NeRFModel
-from nerf_tpu.ops.sampling import deltas_from_t, normalize_positions
-from nerf_tpu.ops.volume import composite
-from nerf_tpu.render import RenderSettings, render_image, render_rays
+from nerf_jax.models import NeRFModel
+from nerf_jax.ops.sampling import deltas_from_t, normalize_positions
+from nerf_jax.ops.volume import composite
+from nerf_jax.render import RenderSettings, render_image, render_rays
 
 
 def _toy_rays(n):
@@ -112,8 +112,8 @@ def test_resample_fine_mode_close_to_merge():
     (no merge op). It is a different (lower-variance) estimator of the
     same integral — renders must agree closely with the merge mode on a
     smooth field, and exactly sorted t must feed the compositor."""
-    from nerf_tpu.render.renderer import _fine_t
-    from nerf_tpu.ops.sampling import stratified_sample
+    from nerf_jax.render.renderer import _fine_t
+    from nerf_jax.ops.sampling import stratified_sample
 
     model = NeRFModel(hidden_dim=32, pos_encoding_dim=2, dir_encoding_dim=1)
     params = model.init(jax.random.key(0))

@@ -5,7 +5,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from nerf_tpu.ops.sampling import (
+from nerf_jax.ops.sampling import (
     deltas_from_t,
     merge_samples,
     normalize_positions,

@@ -1,4 +1,4 @@
-"""Serving surface (nerf_tpu/serve.py): compiled RenderService + the
+"""Serving surface (nerf_jax/serve.py): compiled RenderService + the
 stdlib HTTP wrapper."""
 
 import json
@@ -9,14 +9,14 @@ import urllib.request
 import numpy as np
 import pytest
 
-from nerf_tpu.serve import RenderService, make_http_server
+from nerf_jax.serve import RenderService, make_http_server
 from tests.synthetic import make_synthetic_blender_scene
 
 
 @pytest.fixture(scope="module")
 def service(tmp_path_factory):
-    from nerf_tpu.config import Config
-    from nerf_tpu.train.loop import fit
+    from nerf_jax.config import Config
+    from nerf_jax.train.loop import fit
 
     root = tmp_path_factory.mktemp("scene")
     make_synthetic_blender_scene(str(root), h=16, w=16, num_train=2,
@@ -25,7 +25,7 @@ def service(tmp_path_factory):
     cfg = Config(
         dataset_path=str(root), model_type="nerf", hidden_dim=32,
         pos_encoding_dim=2, dir_encoding_dim=1, num_samples=4,
-        num_random_rays=64, use_pallas=False, donate_state=False,
+        num_random_rays=64, donate_state=False,
         log_interval=5, val_interval=100, save_interval=100,
         num_render_poses=4,
         save_path=str(save), log_dir=str(tmp_path_factory.mktemp("logs")),

@@ -9,14 +9,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from nerf_tpu.config import Config
-from nerf_tpu.data.pipeline import load_scene
-from nerf_tpu.parallel.dp import make_dp_train_step
-from nerf_tpu.parallel.mesh import create_mesh, data_sharding, shard_pool
-from nerf_tpu.parallel.multiscene import make_multiscene_train_step, stack_scenes
-from nerf_tpu.train.loop import render_settings_from_config
-from nerf_tpu.train.state import TrainState, create_train_state
-from nerf_tpu.train.step import make_train_step
+from nerf_jax.config import Config
+from nerf_jax.data.pipeline import load_scene
+from nerf_jax.parallel.dp import make_dp_train_step
+from nerf_jax.parallel.mesh import create_mesh, data_sharding, shard_pool
+from nerf_jax.parallel.multiscene import make_multiscene_train_step, stack_scenes
+from nerf_jax.train.loop import render_settings_from_config
+from nerf_jax.train.state import TrainState, create_train_state
+from nerf_jax.train.step import make_train_step
 from tests.synthetic import make_synthetic_blender_scene
 
 
@@ -32,7 +32,6 @@ def tiny_setup(tmp_path_factory):
         pos_encoding_dim=4,
         dir_encoding_dim=2,
         learning_rate=5e-3,
-        use_pallas=False,
         donate_state=False,
     )
     scene = load_scene(cfg)
@@ -53,9 +52,9 @@ def test_gspmd_step_matches_single_device(tiny_setup):
 
     model, tx, state0 = create_train_state(cfg, jax.random.key(0))
     step_single = make_train_step(model, tx, settings, 64, jax.random.key(1),
-                                  use_pallas=False, donate=False)
+                                  donate=False)
     step_sharded = make_train_step(model, tx, settings, 64, jax.random.key(1),
-                                   use_pallas=False, data_sharding=shard,
+                                   data_sharding=shard,
                                    donate=False)
     s1, m1 = step_single(state0, scene.pool)
     s2, m2 = step_sharded(state0, scene.pool)
@@ -73,7 +72,7 @@ def test_dp_shard_map_step_trains(tiny_setup):
     model, tx, state = create_train_state(cfg, jax.random.key(0))
     pool = shard_pool(scene.pool, mesh)
     step_fn = make_dp_train_step(model, tx, settings, 64, jax.random.key(1),
-                                 mesh, use_pallas=False, donate=False)
+                                 mesh, donate=False)
     losses = []
     for _ in range(30):
         state, m = step_fn(state, pool)
@@ -92,8 +91,40 @@ def test_dp_grads_match_replicated_average(tiny_setup):
     model, tx, state = create_train_state(cfg, jax.random.key(0))
     pool = shard_pool(scene.pool, mesh)
     step_fn = make_dp_train_step(model, tx, settings, 64, jax.random.key(1),
-                                 mesh, use_pallas=False, donate=False)
+                                 mesh, donate=False)
     state2, m = step_fn(state, pool)
+
+    # the same per-shard body on one device: vmap over the 8 pool shards
+    # with the collectives bound to the vmapped axis
+    from nerf_jax.parallel.dp import make_dp_grads, make_shard_grads
+
+    body = make_shard_grads(model, settings, 64 // 8, jax.random.key(1))
+    shards = jax.tree.map(
+        lambda x: np.asarray(x).reshape(8, -1, *x.shape[1:]), pool)
+    pair = (state.params, state.fine_params)
+    (loss_ref, _), grads_ref = jax.jit(jax.vmap(
+        body, in_axes=(None, 0, None), axis_name="data"))(
+        pair, shards, state.step)
+    np.testing.assert_allclose(float(m["loss"]), float(loss_ref[0]),
+                               rtol=1e-5)
+    # the gradients themselves, leaf by leaf: Adam's update below is blind
+    # to a common scale (an n x mean would pass it)
+    _, grads = jax.jit(make_dp_grads(model, settings, 64, jax.random.key(1),
+                                     mesh))(pair, pool, state.step)
+    for g, r in zip(jax.tree_util.tree_leaves(grads),
+                    jax.tree_util.tree_leaves(grads_ref)):
+        r = np.asarray(r[0])
+        err = np.abs(np.asarray(g) - r).max() / np.abs(r).max()
+        assert err < 1e-5, err
+    updates, _ = tx.update(jax.tree.map(lambda g: g[0], grads_ref),
+                           state.opt_state, (state.params, state.fine_params))
+    for a, p, u in zip(jax.tree_util.tree_leaves(state2.params),
+                       jax.tree_util.tree_leaves(state.params),
+                       jax.tree_util.tree_leaves(updates[0])):
+        # Adam's first step divides by |g|: summation-order noise in a
+        # near-zero gradient shows in the update at ~1e-6 of lr=5e-3
+        np.testing.assert_allclose(np.asarray(a), np.asarray(p + u),
+                                   atol=1e-5)
     # params must have moved and be replicated across devices
     moved = any(
         float(jnp.abs(a - b).max()) > 0
@@ -110,7 +141,8 @@ def test_dp_grads_match_replicated_average(tiny_setup):
 def test_multiscene_step(tiny_setup, tmp_path_factory):
     cfg, scene_a = tiny_setup
     root_b = tmp_path_factory.mktemp("scene_b")
-    make_synthetic_blender_scene(str(root_b), h=16, w=16, num_train=4)
+    make_synthetic_blender_scene(str(root_b), h=16, w=16, num_train=4,
+                                 seed=1)
     cfg_b = dataclasses.replace(cfg, dataset_path=str(root_b))
     scene_b = load_scene(cfg_b)
 
@@ -130,7 +162,7 @@ def test_multiscene_step(tiny_setup, tmp_path_factory):
 
     step_fn = make_multiscene_train_step(
         model, tx, settings, 32, jax.random.key(1), mesh,
-        use_pallas=False, donate=False,
+        donate=False,
     )
     losses = []
     for _ in range(25):
@@ -152,7 +184,8 @@ def test_multiscene_step_new_families(tiny_setup, tmp_path_factory,
     kernel is explicitly excluded from vmap inside make_multiscene_...)."""
     cfg, scene_a = tiny_setup
     root_b = tmp_path_factory.mktemp(f"scene_b_{model_type}")
-    make_synthetic_blender_scene(str(root_b), h=16, w=16, num_train=4)
+    make_synthetic_blender_scene(str(root_b), h=16, w=16, num_train=4,
+                                 seed=1)
     cfg = dataclasses.replace(
         cfg, model_type=model_type, hidden_dim=16, grid_res=4,
         pos_encoding_dim=4, dir_encoding_dim=2,
@@ -169,7 +202,7 @@ def test_multiscene_step_new_families(tiny_setup, tmp_path_factory,
 
     step_fn = make_multiscene_train_step(
         model, tx, settings, 32, jax.random.key(1), mesh,
-        use_pallas=False, donate=False,
+        donate=False,
     )
     losses = []
     for _ in range(20):
@@ -184,11 +217,12 @@ def test_fit_multiscene_driver(tiny_setup, tmp_path_factory, tmp_path):
     """End-to-end multi-scene driver: 2 scenes on a scene:2,data:4 mesh."""
     import dataclasses
 
-    from nerf_tpu.train.multiscene_loop import fit_multiscene
+    from nerf_jax.train.multiscene_loop import fit_multiscene
 
     cfg, _ = tiny_setup
     root_b = tmp_path_factory.mktemp("scene_c")
-    make_synthetic_blender_scene(str(root_b), h=16, w=16, num_train=3)
+    make_synthetic_blender_scene(str(root_b), h=16, w=16, num_train=3,
+                                 seed=1)
     cfg = dataclasses.replace(
         cfg, mesh_shape="scene:2,data:4", save_path=str(tmp_path),
         num_random_rays=32, log_interval=10, save_interval=100000,

@@ -8,11 +8,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from nerf_tpu.config import Config
-from nerf_tpu.models.nerf import NeRFModel
-from nerf_tpu.models.siren import SirenModel
-from nerf_tpu.utils.torch_export import state_dict_from_params
-from nerf_tpu.utils.torch_import import (
+from nerf_jax.config import Config
+from nerf_jax.models.nerf import NeRFModel
+from nerf_jax.models.siren import SirenModel
+from nerf_jax.utils.torch_export import state_dict_from_params
+from nerf_jax.utils.torch_import import (
     nerf_params_from_state_dict,
     siren_params_from_state_dict,
 )
@@ -68,11 +68,11 @@ def test_end_to_end_export(tmp_path):
     model_state_dict values, Adam moment continuation, and that real torch
     Adam/LambdaLR instances accept the exported state dicts and step."""
     from tests.synthetic import make_synthetic_blender_scene
-    from nerf_tpu.train.loop import fit
-    from nerf_tpu.utils.checkpoint import latest_checkpoint, load_checkpoint
-    from nerf_tpu.utils.torch_export import (_find_adam_state,
+    from nerf_jax.train.loop import fit
+    from nerf_jax.utils.checkpoint import latest_checkpoint, load_checkpoint
+    from nerf_jax.utils.torch_export import (_find_adam_state,
                                              export_torch_checkpoint)
-    from nerf_tpu.config import parse_config_file
+    from nerf_jax.config import parse_config_file
 
     root = tmp_path / "scene"
     make_synthetic_blender_scene(str(root), h=16, w=16, num_train=2,
@@ -81,7 +81,7 @@ def test_end_to_end_export(tmp_path):
     cfg_path.write_text(
         f"dataset_path = {root}\nmodel_type = nerf\nhidden_dim = 32\n"
         "pos_encoding_dim = 2\ndir_encoding_dim = 1\nnum_samples = 4\n"
-        "num_random_rays = 16\nuse_pallas = false\nval_interval = 1000\n"
+        "num_random_rays = 16\nval_interval = 1000\n"
         "save_interval = 1000\nlog_interval = 1000\n"
         f"save_path = {tmp_path / 'models'}\nlog_dir = {tmp_path / 'logs'}\n"
     )
@@ -100,7 +100,7 @@ def test_end_to_end_export(tmp_path):
     assert loaded["step"] == 3
 
     # values match the native checkpoint (transposed weights)
-    from nerf_tpu.train.state import create_train_state
+    from nerf_jax.train.state import create_train_state
 
     _, _, template = create_train_state(cfg, jax.random.key(0))
     state = load_checkpoint(ckpt, template)

@@ -10,10 +10,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from nerf_tpu.config import Config
-from nerf_tpu.models.nerf import NeRFModel
-from nerf_tpu.models.siren import SirenModel
-from nerf_tpu.utils.torch_import import (
+from nerf_jax.config import Config
+from nerf_jax.models.nerf import NeRFModel
+from nerf_jax.models.siren import SirenModel
+from nerf_jax.utils.torch_import import (
     nerf_params_from_state_dict,
     params_from_state_dict,
     siren_params_from_state_dict,
@@ -75,8 +75,8 @@ def test_unknown_family_rejected():
 def test_end_to_end_pth_to_eval(tmp_path):
     """torch.save a reference-format checkpoint, import it, and render
     through the real eval CLI."""
-    from nerf_tpu.cli.eval_cli import main as eval_main
-    from nerf_tpu.utils.torch_import import import_torch_checkpoint
+    from nerf_jax.cli.eval_cli import main as eval_main
+    from nerf_jax.utils.torch_import import import_torch_checkpoint
     from tests.synthetic import make_synthetic_blender_scene
 
     root = tmp_path / "scene"
@@ -95,10 +95,10 @@ def test_end_to_end_pth_to_eval(tmp_path):
     cfg_path.write_text(
         f"dataset_path = {root}\nmodel_type = nerf\nhidden_dim = 32\n"
         "pos_encoding_dim = 2\ndir_encoding_dim = 1\nnum_samples = 4\n"
-        "num_render_poses = 1\nuse_pallas = false\n"
+        "num_render_poses = 1\n"
         f"log_dir = {tmp_path / 'logs'}\n"
     )
-    from nerf_tpu.config import parse_config_file
+    from nerf_jax.config import parse_config_file
 
     cfg = parse_config_file(str(cfg_path))
     out_ckpt = import_torch_checkpoint(str(pth), cfg, str(tmp_path / "m"))
@@ -107,8 +107,8 @@ def test_end_to_end_pth_to_eval(tmp_path):
     # the imported run CONTINUES at step 7: TrainState.step and the
     # optimizer's count leaves carry it, so --resume fine-tunes at the
     # decayed LR instead of re-applying lr(0) to converged weights
-    from nerf_tpu.train.state import create_train_state
-    from nerf_tpu.utils.checkpoint import load_checkpoint
+    from nerf_jax.train.state import create_train_state
+    from nerf_jax.utils.checkpoint import load_checkpoint
 
     _, _, fresh = create_train_state(cfg, jax.random.key(0))
     restored = load_checkpoint(out_ckpt, fresh)

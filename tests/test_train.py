@@ -6,12 +6,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from nerf_tpu.config import Config
-from nerf_tpu.data.pipeline import load_scene
-from nerf_tpu.train.loop import render_settings_from_config
-from nerf_tpu.train.state import create_train_state
-from nerf_tpu.train.step import make_eval_render, make_train_step
-from nerf_tpu.utils.checkpoint import (
+from nerf_jax.config import Config
+from nerf_jax.data.pipeline import load_scene
+from nerf_jax.train.loop import render_settings_from_config
+from nerf_jax.train.state import create_train_state
+from nerf_jax.train.step import make_eval_render, make_train_step
+from nerf_jax.utils.checkpoint import (
     latest_checkpoint,
     load_checkpoint,
     read_metadata,
@@ -33,7 +33,6 @@ def tiny_setup(tmp_path_factory):
         dir_encoding_dim=2,
         model_type="nerf",
         learning_rate=5e-3,
-        use_pallas=False,
         donate_state=False,
     )
     scene = load_scene(cfg)
@@ -49,7 +48,7 @@ def _train(cfg, scene, steps, state=None, model_tx=None):
         model, tx = model_tx
     step_fn = make_train_step(
         model, tx, settings, cfg.num_random_rays, jax.random.key(1),
-        use_pallas=False, donate=False,
+        donate=False,
     )
     losses = []
     for _ in range(steps):
@@ -71,7 +70,7 @@ def test_metrics_finite_and_psnr_consistent(tiny_setup):
     settings = render_settings_from_config(cfg)
     model, tx, state = create_train_state(cfg, jax.random.key(0))
     step_fn = make_train_step(model, tx, settings, 64, jax.random.key(1),
-                              use_pallas=False, donate=False)
+                              donate=False)
     state, m = step_fn(state, scene.pool)
     mse, psnr = float(m["mse"]), float(m["psnr"])
     assert np.isfinite(mse) and np.isfinite(psnr)
@@ -107,8 +106,8 @@ def test_full_image_eval_render(tiny_setup):
     cfg, scene = tiny_setup
     settings = render_settings_from_config(cfg)
     model, tx, state = create_train_state(cfg, jax.random.key(0))
-    render = make_eval_render(model, settings, use_pallas=False)
-    from nerf_tpu.data.rays import compute_rays
+    render = make_eval_render(model, settings)
+    from nerf_jax.data.rays import compute_rays
 
     rays_o, rays_d, _ = compute_rays(
         scene.val_images[:1], scene.val_c2w[:1], scene.focal
@@ -131,7 +130,7 @@ def test_hierarchical_train_step_runs(tiny_setup):
     model, tx, state = create_train_state(cfg2, jax.random.key(0))
     assert state.fine_params  # separate fine model present
     step_fn = make_train_step(model, tx, settings, 64, jax.random.key(1),
-                              use_pallas=False, donate=False)
+                              donate=False)
     before = jax.tree.map(lambda x: x.copy(), state.fine_params)
     state, m = step_fn(state, scene.pool)
     assert np.isfinite(float(m["loss"]))
@@ -145,44 +144,12 @@ def test_hierarchical_train_step_runs(tiny_setup):
     assert changed  # fine model receives gradients
 
 
-def test_scan_chunked_steps_bit_identical(tiny_setup):
-    """N steps inside one lax.scan dispatch must equal N single-step calls
-    bit-for-bit (per-step randomness derives from state.step, so chunking
-    is purely a dispatch-amortization choice)."""
-    from nerf_tpu.train.step import make_scan_train_step
-
-    cfg, scene = tiny_setup
-    settings = render_settings_from_config(cfg)
-    model, tx, state0 = create_train_state(cfg, jax.random.key(cfg.seed))
-
-    one = make_train_step(
-        model, tx, settings, cfg.num_random_rays, jax.random.key(1),
-        use_pallas=False, donate=False,
-    )
-    five = make_scan_train_step(
-        model, tx, settings, cfg.num_random_rays, jax.random.key(1),
-        num_steps=5, use_pallas=False, donate=False,
-    )
-
-    s_a = state0
-    losses_a = []
-    for _ in range(5):
-        s_a, m = one(s_a, scene.pool)
-        losses_a.append(np.asarray(m["mse"]))
-    s_b, ms = five(state0, scene.pool)
-
-    np.testing.assert_array_equal(np.asarray(ms["mse"]), np.stack(losses_a))
-    for a, b in zip(jax.tree.leaves(s_a.params), jax.tree.leaves(s_b.params)):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    assert int(s_b.step) == 5
-
-
 def test_fit_with_odd_intervals(tmp_path):
     """The event-aligned chunking must handle intervals that don't divide
     each other (gcd chunking + tail) and still produce checkpoints."""
     import os
 
-    from nerf_tpu.train.loop import fit
+    from nerf_jax.train.loop import fit
 
     root = tmp_path / "scene"
     make_synthetic_blender_scene(str(root), h=16, w=16, num_train=4)
@@ -194,7 +161,6 @@ def test_fit_with_odd_intervals(tmp_path):
         pos_encoding_dim=2,
         dir_encoding_dim=1,
         model_type="nerf",
-        use_pallas=False,
         donate_state=False,
         log_interval=3,
         val_interval=7,
@@ -214,8 +180,8 @@ def test_scan_hostile_families_dispatch_per_step(tmp_path, monkeypatch):
     """Grid/hash families carry scan_hostile=True and fit()'s auto chunking
     then never builds a multi-step scan (measured ~15% slower for them);
     MLP families keep scan chunks."""
-    import nerf_tpu.train.loop as loop_mod
-    from nerf_tpu.train.loop import fit
+    import nerf_jax.train.loop as loop_mod
+    from nerf_jax.train.loop import fit
     from tests.synthetic import make_synthetic_blender_scene
 
     root = tmp_path / "scene"
@@ -231,7 +197,7 @@ def test_scan_hostile_families_dispatch_per_step(tmp_path, monkeypatch):
     monkeypatch.setattr(loop_mod, "make_scan_train_step", spy)
     base = dict(
         dataset_path=str(root), num_random_rays=16, num_samples=4,
-        use_pallas=False, log_interval=4, val_interval=1000,
+        log_interval=4, val_interval=1000,
         save_interval=1000, save_path=str(tmp_path / "m"),
         log_dir=str(tmp_path / "l"), learning_rate=0.01,
     )

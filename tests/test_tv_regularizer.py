@@ -6,10 +6,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from nerf_tpu.config import Config
-from nerf_tpu.models.plenoxels import PlenoxelsModel
-from nerf_tpu.models.registry import model_from_config
-from nerf_tpu.train.loop import make_regularizer
+from nerf_jax.config import Config
+from nerf_jax.models.plenoxels import PlenoxelsModel
+from nerf_jax.models.registry import model_from_config
+from nerf_jax.train.loop import make_regularizer
 
 
 def _np_tv(g):
@@ -62,11 +62,11 @@ def test_regularizer_weights_and_fine_params():
 
 
 def test_train_step_adds_tv_to_loss_not_mse():
-    from nerf_tpu.data.pipeline import RayPool
-    from nerf_tpu.render.renderer import RenderSettings
-    from nerf_tpu.train.optim import make_optimizer
-    from nerf_tpu.train.state import TrainState
-    from nerf_tpu.train.step import make_train_step
+    from nerf_jax.data.pipeline import RayPool
+    from nerf_jax.render.renderer import RenderSettings
+    from nerf_jax.train.optim import make_optimizer
+    from nerf_jax.train.state import TrainState
+    from nerf_jax.train.step import make_train_step
 
     cfg = Config(model_type="plenoxels", tv_lambda=1.0, tv_sh_lambda=1.0,
                  grid_res=8)
@@ -88,7 +88,7 @@ def test_train_step_adds_tv_to_loss_not_mse():
 
     def run(regularizer):
         step = make_train_step(model, tx, settings, 32, jax.random.key(3),
-                               use_pallas=False, donate=False,
+                               donate=False,
                                regularizer=regularizer)
         return step(state, pool)
 

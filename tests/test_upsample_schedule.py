@@ -5,9 +5,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from nerf_tpu.config import Config
-from nerf_tpu.train.loop import fit, parse_upsample_steps
-from nerf_tpu.utils.checkpoint import read_metadata
+from nerf_jax.config import Config
+from nerf_jax.train.loop import fit, parse_upsample_steps
+from nerf_jax.utils.checkpoint import read_metadata
 from tests.synthetic import make_synthetic_blender_scene
 
 
@@ -31,7 +31,7 @@ def test_upsample_rejected_for_mlp_families(tmp_path):
     cfg = Config(dataset_path=str(root), model_type="nerf", hidden_dim=32,
                  pos_encoding_dim=2, dir_encoding_dim=1, num_samples=4,
                  num_random_rays=64, upsample_steps="5:16",
-                 use_pallas=False, save_path=str(tmp_path / "m"),
+                 save_path=str(tmp_path / "m"),
                  log_dir=str(tmp_path / "l"))
     with pytest.raises(ValueError, match="no\\s+upsample hook"):
         fit(cfg, max_steps=8, enable_tensorboard=False)
@@ -43,7 +43,7 @@ def _cfg(tmp_path, **kw):
     base = dict(
         dataset_path=str(root), model_type="plenoxels", grid_res=4,
         learning_rate=0.01, num_samples=4, num_random_rays=64,
-        use_pallas=False, donate_state=False,
+        donate_state=False,
         log_interval=4, val_interval=100, save_interval=6,
         save_path=str(tmp_path / "models"), log_dir=str(tmp_path / "logs"),
     )

@@ -5,8 +5,8 @@ background per rendering.py:143-151)."""
 import numpy as np
 import jax.numpy as jnp
 
-from nerf_tpu.ops.volume import composite, exclusive_cumprod
-from nerf_tpu.utils.metrics import mse_to_psnr
+from nerf_jax.ops.volume import composite, exclusive_cumprod
+from nerf_jax.utils.metrics import mse_to_psnr
 
 
 def test_exclusive_cumprod_golden():

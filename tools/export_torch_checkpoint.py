@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Convert a native nerf_tpu checkpoint into a reference-framework
+"""Convert a native nerf_jax checkpoint into a reference-framework
 PyTorch checkpoint (.pth) the reference's own eval.py / train.py --resume
 accept (inverse of tools/import_torch_checkpoint.py):
 
@@ -32,11 +32,11 @@ def main(argv=None) -> None:
                         help="export the fine network instead of the coarse")
     args = parser.parse_args(argv)
 
-    from nerf_tpu.utils.platform import apply_platform_env
+    from nerf_jax.utils.platform import setup_compilation_cache
 
-    apply_platform_env()
-    from nerf_tpu.config import parse_config_file
-    from nerf_tpu.utils.torch_export import export_torch_checkpoint
+    setup_compilation_cache()
+    from nerf_jax.config import parse_config_file
+    from nerf_jax.utils.torch_export import export_torch_checkpoint
 
     cfg = parse_config_file(args.config)
     path = export_torch_checkpoint(args.checkpoint, cfg, args.out,

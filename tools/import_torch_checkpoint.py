@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Convert a reference-framework PyTorch checkpoint (.pth) into a native
-nerf_tpu checkpoint that eval.py / train.py --resume accept:
+nerf_jax checkpoint that eval.py / train.py --resume accept:
 
     python tools/import_torch_checkpoint.py \
         --config config_lego.txt --checkpoint nerf_model_300000.pth \
@@ -27,11 +27,11 @@ def main(argv=None) -> None:
     parser.add_argument("--out", default="./models")
     args = parser.parse_args(argv)
 
-    from nerf_tpu.utils.platform import apply_platform_env
+    from nerf_jax.utils.platform import setup_compilation_cache
 
-    apply_platform_env()
-    from nerf_tpu.config import parse_config_file
-    from nerf_tpu.utils.torch_import import import_torch_checkpoint
+    setup_compilation_cache()
+    from nerf_jax.config import parse_config_file
+    from nerf_jax.utils.torch_import import import_torch_checkpoint
 
     cfg = parse_config_file(args.config)
     os.makedirs(args.out, exist_ok=True)

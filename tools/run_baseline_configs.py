@@ -16,7 +16,7 @@ Runs the BASELINE.json configs:
   3. fern LLFF/NDC, white background off (needs --fern)
   4. lego with the SIREN variant
 (5. multi-scene/multi-host is a separate launch topology — see
-    nerf_tpu/train/multiscene_loop.py and Config.multihost.)
+    nerf_jax/train/multiscene_loop.py and Config.multihost.)
 
 For each config it trains with periodic validation renders, records the
 wall-clock time and step at which val PSNR first reaches the target, and
@@ -65,17 +65,12 @@ def run_config(spec: dict, target_psnr: float, max_minutes: float,
     import jax
     import jax.numpy as jnp
 
-    from nerf_tpu.config import Config
-    from nerf_tpu.data.pipeline import load_scene
-    from nerf_tpu.train.loop import render_settings_from_config
-    from nerf_tpu.train.state import create_train_state
-    from nerf_tpu.train.step import (
-        make_eval_render,
-        make_scan_train_step,
-        resolve_apply_fn,
-        resolve_fused_render,
-    )
-    from nerf_tpu.utils.metrics import mse_to_psnr
+    from nerf_jax.config import Config
+    from nerf_jax.data.pipeline import load_scene
+    from nerf_jax.train.loop import render_settings_from_config
+    from nerf_jax.train.state import create_train_state
+    from nerf_jax.train.step import make_eval_render, make_scan_train_step
+    from nerf_jax.utils.metrics import mse_to_psnr
 
     name = spec.pop("name")
     cfg_fields = {f.name for f in dataclasses.fields(Config)}
@@ -89,18 +84,13 @@ def run_config(spec: dict, target_psnr: float, max_minutes: float,
     )
 
     model, tx, state = create_train_state(cfg, jax.random.key(cfg.seed))
-    fused = resolve_fused_render(model, settings, use_pallas=cfg.use_pallas)
-    apply_fn = (model.apply if fused is not None
-                else resolve_apply_fn(model, use_pallas=cfg.use_pallas))
     step_fn = make_scan_train_step(
         model, tx, settings, cfg.num_random_rays, jax.random.key(1),
-        num_steps=val_every, use_pallas=cfg.use_pallas,
-        apply_fn=apply_fn, fused_render=fused,
+        num_steps=val_every,
     )
-    eval_render = make_eval_render(model, settings, apply_fn=apply_fn,
-                                   fused_render=fused)
+    eval_render = make_eval_render(model, settings)
 
-    from nerf_tpu.data.rays import compute_rays
+    from nerf_jax.data.rays import compute_rays
 
     h, w = scene.hw
     val_img = np.asarray(scene.val_images[0]).reshape(-1, 3)
@@ -109,7 +99,7 @@ def run_config(spec: dict, target_psnr: float, max_minutes: float,
     ro, rd, _ = compute_rays(scene.val_images[:1], c2w[None], scene.focal)
     ro, rd, viewdirs = ro[0], rd[0], None
     if scene.ndc:
-        from nerf_tpu.ops.ndc import ndc_rays
+        from nerf_jax.ops.ndc import ndc_rays
 
         viewdirs = jnp.asarray(rd)
         ro, rd = ndc_rays(h, w, scene.focal, 1.0, jnp.asarray(ro),
